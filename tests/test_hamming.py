@@ -4,7 +4,7 @@ import cv2
 import numpy as np
 import pytest
 
-from openvo_tpu.ops.hamming import (
+from openvo_jax.ops.hamming import (
     hamming_distance_matrix,
     knn2,
     pack_bits,

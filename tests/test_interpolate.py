@@ -4,7 +4,7 @@ reference semantics (stereo_odometer.py:50-79)."""
 import numpy as np
 import pytest
 
-from openvo_tpu.ops.interpolate import bilinear_sample_3d
+from openvo_jax.ops.interpolate import bilinear_sample_3d
 
 
 def oracle(img, x, y):

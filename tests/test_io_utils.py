@@ -5,15 +5,15 @@ pose overlay rendering, and odometer checkpoint/resume."""
 import numpy as np
 import pytest
 
-from openvo_tpu import StereoCamera, StereoOdometer
-from openvo_tpu.config import SGBMParams
-from openvo_tpu.io.calib import save_npz, save_pfiles
-from openvo_tpu.io.synthetic import (
+from openvo_jax import StereoCamera, StereoOdometer
+from openvo_jax.config import SGBMParams
+from openvo_jax.io.calib import save_npz, save_pfiles
+from openvo_jax.io.synthetic import (
     gt_disparity,
     make_rig,
     render_stereo_sequence,
 )
-from openvo_tpu.utils.draw_pose import drawPoseOnImage
+from openvo_jax.utils.draw_pose import drawPoseOnImage
 
 SGBM = {
     "minDisparity": 0, "numDisparities": 64, "blockSize": 5,

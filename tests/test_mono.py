@@ -8,9 +8,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from openvo_tpu.io.synthetic import render_stereo_sequence
-from openvo_tpu.models.mono_odometer import MonoOdometer
-from openvo_tpu.pose.ransac import (
+from openvo_jax.io.synthetic import render_stereo_sequence
+from openvo_jax.models.mono_odometer import MonoOdometer
+from openvo_jax.pose.ransac import (
     ransac_essential,
     ransac_essential_5pt,
     ransac_rigid,
@@ -115,7 +115,7 @@ def _planar_two_view(seed=7, n=200):
 def test_five_point_minimal_solver_contains_truth():
     """The Nister 5-point minimal solver's candidate set must contain the
     true essential matrix for an exact 5-correspondence sample."""
-    from openvo_tpu.pose.fivepoint import five_point_candidates
+    from openvo_jax.pose.fivepoint import five_point_candidates
 
     x1, x2, R, t = synthetic_two_view(5, n=5)
     Es, valid = jax.jit(five_point_candidates)(jnp.asarray(x1),
@@ -132,8 +132,7 @@ def test_five_point_minimal_solver_contains_truth():
 
 def test_planar_scene_recovered_by_five_point():
     """All-planar scene (the 8-point DLT's degenerate case): 5-point +
-    cheirality must recover the TRUE pose — the upgrade VERDICT r2 item 9
-    asked for, matching cv2.findEssentialMat's Nister engine."""
+    cheirality must recover the TRUE pose, matching cv2.findEssentialMat's Nister engine."""
     x1, x2, R_true, t_true = _planar_two_view()
     mask = np.ones(len(x1), bool)
     E, inl, n_inl = ransac_essential_5pt(

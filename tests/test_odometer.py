@@ -8,16 +8,16 @@ import sys
 import numpy as np
 import pytest
 
-from openvo_tpu import OdometerConfig, StereoCamera, StereoOdometer
-from openvo_tpu.config import (
+from openvo_jax import OdometerConfig, StereoCamera, StereoOdometer
+from openvo_jax.config import (
     SKIP_BIGDIST,
     SKIP_BIGROT,
     SKIP_NAN,
     SKIP_OUTLIER,
     SKIP_RIGIDITY,
 )
-from openvo_tpu.io.synthetic import render_stereo_sequence
-from openvo_tpu.models.stereo_odometer import make_point_cloud_transform
+from openvo_jax.io.synthetic import render_stereo_sequence
+from openvo_jax.models.stereo_odometer import make_point_cloud_transform
 
 IMG_SIZE = (320, 240)
 F = 280.0

@@ -5,9 +5,9 @@ import cv2
 import numpy as np
 import pytest
 
-from openvo_tpu.pose.kabsch import kabsch, residuals_relative, transform_points
-from openvo_tpu.pose.outlier import masked_median, outlier_filter
-from openvo_tpu.pose.rigid_clique import rigid_body_filter
+from openvo_jax.pose.kabsch import kabsch, residuals_relative, transform_points
+from openvo_jax.pose.outlier import masked_median, outlier_filter
+from openvo_jax.pose.rigid_clique import rigid_body_filter
 
 
 def rigid_scene(rng, n=60, noise=0.0):

@@ -4,7 +4,7 @@ import cv2
 import numpy as np
 import pytest
 
-from openvo_tpu.geometry.rectify import (
+from openvo_jax.geometry.rectify import (
     init_undistort_rectify_map,
     stereo_rectify,
     undistort_points,

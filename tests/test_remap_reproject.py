@@ -4,8 +4,8 @@ import cv2
 import numpy as np
 import pytest
 
-from openvo_tpu.geometry.reproject import reproject_image_to_3d
-from openvo_tpu.ops.remap import remap_bilinear, remap_u8
+from openvo_jax.geometry.reproject import reproject_image_to_3d
+from openvo_jax.ops.remap import remap_bilinear, remap_u8
 
 
 @pytest.mark.parametrize("seed", [0, 1])

@@ -4,8 +4,8 @@ import cv2
 import numpy as np
 import pytest
 
-from openvo_tpu.geometry import se3
-from openvo_tpu.utils.rot2rpy import rot2RPY
+from openvo_jax.geometry import se3
+from openvo_jax.utils.rot2rpy import rot2RPY
 
 
 def rand_rotation(rng):

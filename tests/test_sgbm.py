@@ -6,9 +6,9 @@ import cv2
 import numpy as np
 import pytest
 
-from openvo_tpu.config import SGBMParams
-from openvo_tpu.io.synthetic import gt_disparity, render_stereo_sequence
-from openvo_tpu.ops.sgbm import sgbm_disparity, sgbm_disparity16
+from openvo_jax.config import SGBMParams
+from openvo_jax.io.synthetic import gt_disparity, render_stereo_sequence
+from openvo_jax.ops.sgbm import sgbm_disparity, sgbm_disparity16
 
 
 def synthetic_pair(seed=0, img_size=(256, 160), f=210.0, baseline=0.3):
@@ -67,11 +67,9 @@ def test_sgbm_agreement_vs_cv2(seed):
 
 
 def test_sgbm_agreement_nonaligned_width():
-    """Width not a multiple of 128 exercises the keep_pad path: the fused
-    kernels flow RIGHT-padded (wp, H, D) volumes through every sweep with
-    uniform-sentinel pad columns (round 4). The right-edge columns — where
-    a wrong pad carry or a pad deposit into the LR ring would surface —
-    must still agree with cv2."""
+    """Width not a multiple of 128: the right-edge columns, where a wrong
+    border in the sweeps or the LR check would surface, must still agree
+    with cv2."""
     left, right, _ = synthetic_pair(7, img_size=(300, 160))
     p = make_params()
     ref = cv2_sgbm(left, right, p)
@@ -97,7 +95,7 @@ def test_sgbm_agreement_nonaligned_width():
     (5, 0, 301),    # large preFilterCap: sentinel must still dominate
 ])
 def test_sgbm_agreement_vs_cv2_param_envelope(block, min_disp, cap):
-    """ADVICE round 1: the cv2-oracle comparison must cover block_size,
+    """The cv2-oracle comparison must cover block_size,
     min_disparity and pre_filter_cap values outside the exactly-safe
     (5, 0, 63) envelope."""
     left, right, _ = synthetic_pair(0)
@@ -140,8 +138,7 @@ def test_sgbm_invalid_encoding_and_scale():
 
 def test_speckle_filter_matches_cv2_oracle():
     """Our pointer-jump connected-component speckle filter vs the
-    cv2.filterSpeckles oracle (ADVICE round 1: it was previously validated
-    only by self-consistency). Both are applied to OUR raw disparity, so
+    cv2.filterSpeckles oracle. Both are applied to OUR raw disparity, so
     this isolates the filter itself."""
     left, right, _ = synthetic_pair(5)
     p_off = make_params()
@@ -159,10 +156,10 @@ def test_speckle_filter_matches_cv2_oracle():
 def test_speckle_filter_batched_equals_single():
     """The custom_vmap batched speckle core (globally-offset flat labels,
     one sort for the whole batch) must agree with per-frame filtering —
-    covers the round-4 scan+sort rewrite on the stream/rig vmap path."""
+    covers the scan+sort core on the stream/rig vmap path."""
     import jax
     import jax.numpy as jnp
-    from openvo_tpu.ops.sgbm import _speckle_filter
+    from openvo_jax.ops.sgbm import _speckle_filter
 
     left, right, _ = synthetic_pair(4)
     p = make_params(speckle=True)
@@ -201,32 +198,8 @@ def test_sgbm_speckle_filter_removes_islands():
     del newly_invalid
 
 
-def test_lr_lookup_matches_gather_oracle():
-    """The gather-free shift-select LR lookup (sgbm_pallas.lr_lookup) must
-    equal best_r[x - best(x)] wherever x - best >= 0 (the only region its
-    callers consume; the left band is overridden by an explicit term)."""
-    import jax
-    import jax.numpy as jnp
-
-    if jax.default_backend() != "tpu":
-        pytest.skip("Pallas TPU kernel (production path is TPU-gated)")
-
-    from openvo_tpu.ops.sgbm_pallas import lr_lookup
-
-    rng = np.random.default_rng(7)
-    h, wp, d = 48, 384, 128
-    best = rng.integers(0, d, size=(h, wp)).astype(np.int32)
-    best_r = rng.integers(0, d + 1, size=(h, wp)).astype(np.int32)
-    out = np.asarray(lr_lookup(jnp.asarray(best), jnp.asarray(best_r), d))
-    x = np.arange(wp)[None, :]
-    idx = x - best
-    ok = idx >= 0
-    oracle = np.take_along_axis(best_r, np.clip(idx, 0, wp - 1), axis=1)
-    assert (out[ok] == oracle[ok]).all()
-
-
 def test_speckle_filter_spiral_worst_case():
-    """High-tortuosity component (ADVICE r4): a long spiral of uniform
+    """High-tortuosity component: a long spiral of uniform
     disparity needs O(#bends) labeling rounds — far beyond the fixed
     count that converges on real SGBM maps. The convergence-checked loop
     must label it as ONE component (size > window => kept), and small
@@ -234,7 +207,7 @@ def test_speckle_filter_spiral_worst_case():
     cv2.filterSpeckles oracle on the same map."""
     import jax
     import jax.numpy as jnp
-    from openvo_tpu.ops.sgbm import _speckle_filter
+    from openvo_jax.ops.sgbm import _speckle_filter
 
     H, W = 96, 128
     d = np.full((H, W), -16, np.int16)

@@ -5,7 +5,7 @@ ORB.compute() on a keypoint with angle=0 samples the Gaussian-blurred
 image at integer offsets (p_i, q_i) and sets bit i = [I(p_i) < I(q_i)].
 Probing with enough random images pins each bit's (p, q) pair uniquely.
 
-Writes openvo_tpu/ops/orb_pattern.py (the recovered table + provenance)
+Writes openvo_jax/ops/orb_pattern.py (the recovered table + provenance)
 and verifies bit-exact reconstruction on held-out images.
 
 Run once: python tools/extract_orb_pattern.py
@@ -105,7 +105,7 @@ def main():
     print(f"recovered 256 pairs, max |offset| = {lim}; held-out check: "
           f"{total_flips} near-tie flips / {256 * N_VERIFY} bits")
 
-    out = os.path.join(os.path.dirname(__file__), "..", "openvo_tpu", "ops",
+    out = os.path.join(os.path.dirname(__file__), "..", "openvo_jax", "ops",
                        "orb_pattern.py")
     rows = ",\n    ".join(
         ", ".join(str(v) for v in table[i]) for i in range(256))
